@@ -1,7 +1,8 @@
 # nanocall_tpu containers (packaging parity with the reference's fat +
 # slim Docker images; see SURVEY.md L7: Dockerfile, Dockerfile.slim.in,
-# script/build-slim-docker-image).  Assumes a base image with JAX + the
-# TPU runtime for the target platform (e.g. a Cloud TPU VM base).
+# script/build-slim-docker-image).  For the GPU, build on a base image
+# with JAX and its CUDA plugin (--build-arg BASE=<image with
+# jax[cuda12]>); the default slim Python base runs on the CPU.
 #
 #   docker build -t nanocall-tpu .                 # fat (default: build stage)
 #   docker build --target slim -t nanocall-tpu-slim \

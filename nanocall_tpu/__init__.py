@@ -1,10 +1,10 @@
-"""nanocall_tpu: a TPU-native nanopore HMM basecalling framework.
+"""nanocall_tpu: a nanopore HMM basecalling framework in JAX, run on GPUs.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the reference
+A from-scratch JAX/XLA rebuild of the capabilities of the reference
 CPU basecaller nanocall (mateidavid/nanocall): fast5 event ingestion, 6-mer
 pore models, a 4096-state stay/step/skip HMM, per-read EM training of
 pore-model scaling and transition parameters, strand/hairpin detection, and
-batched Viterbi decoding to FASTA, data-parallel over a TPU device mesh.
+batched Viterbi decoding to FASTA, data-parallel over a device mesh.
 """
 
 def _tune_allocator() -> None:

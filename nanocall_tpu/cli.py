@@ -21,7 +21,7 @@ log = logging.getLogger("nanocall")
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="nanocall-tpu",
-        description="Call bases in Oxford Nanopore reads (TPU-native).",
+        description="Call bases in Oxford Nanopore reads (JAX, on a GPU or the CPU).",
     )
     from .version import get_version
 
@@ -74,7 +74,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="debug: dump the first candidate's training-round "
                    "inputs (emissions/transitions/fw/bw TSVs) to DIR and "
                    "exit (the reference's DUMP_TRAINING_DATA hook)")
-    # multi-host (pod slice) execution
+    # multi-host execution
     p.add_argument("--coordinator", default="",
                    help="multi-host coordinator address host:port")
     p.add_argument("--num-hosts", type=int, default=1)

@@ -59,33 +59,30 @@ class Config:
     # batch elements per bucket launch (memory control)
     bucket_max_batch: int = 256
     # score-only (forward, no traceback) chunks keep no backpointer tensor,
-    # so their batch cap need not be HBM-bound like path chunks'.  Measured
-    # on this hardware though, BIGGER score chunks are a net LOSS (A/B at
-    # 512 reads: cap 1024 ran 9.6-9.9 s vs cap 128's 9.2-9.3 s in one
-    # window): the coarser granularity delays the first contests' winner
-    # path dispatch more than the saved fetch round trips gain, since
-    # fetches are already 4-way threaded.  0 = use the path chunks' cap
-    # (the measured best); set >0 to cap score chunks independently.
+    # so their batch cap need not be HBM-bound like path chunks'.  Bigger
+    # score chunks were a net loss on the previous accelerator: the
+    # coarser granularity delays the first contests' winner path dispatch.
+    # 0 = use the path chunks' cap; set >0 to cap score chunks
+    # independently.  Chosen on the previous accelerator; not re-measured
+    # on the H100.
     score_max_batch: int = 0
-    # 128 groups x 4 seqs = 512 fwbw rows: the EM scan is iteration-latency
-    # bound at T=128, and 512 rows run at 1.89M events/s vs 1.04M at 256
-    # and 1.68M at 1024 (tools/exp_train.py sweep, PERFORMANCE.md)
+    # 128 groups x 4 seqs = 512 fwbw rows per EM dispatch: the EM scan is
+    # iteration-latency bound at T=128, so rows amortize each step.
+    # Chosen on the previous accelerator; not re-measured on the H100.
     train_group_batch: int = 128
     # two-phase EM: run every group this many rounds, then repack only the
     # still-unconverged groups and continue (a chunk otherwise waits on its
     # slowest group's round count; trajectory-identical — train.run_em
-    # state0).  0 = single phase.  8 measured best on the simulated
-    # workload's rounds histogram (~11%% of groups exceed 8 rounds, so
-    # phase 2 shrinks to one chunk: 6 -> 232 stragglers/2 chunks, 8 -> 85/1).
+    # state0).  0 = single phase.  8 fits the simulated workload's rounds
+    # histogram (about one group in nine needs more than 8 rounds, so
+    # phase 2 shrinks to one chunk).
     em_phase1_rounds: int = 8
     # overlap decode packing/dispatch with phase-2 straggler EM
     # (run_pipeline), with the decode FETCHES deferred until the phase-2
-    # results land so the serial relay carries one traffic direction at a
-    # time.  Measured (tools/exp_overlap2.py, 512 reads, one window):
-    # staged 8.65-8.79s, overlap+eager-fetch 9.2-12.7s (fetch round trips
-    # contend with EM/pool transfers), overlap+deferred-fetch
-    # 8.51-8.60s — the consistent winner, so it is the default.
-    # Score->path overlap inside the decode driver is always on.
+    # results land so the host link carries one traffic direction at a
+    # time.  Chosen on the previous accelerator, whose host link was
+    # serial; not re-measured on the H100.  Score->path overlap inside the
+    # decode driver is always on.
     overlap_decode: bool = True
     # parallel
     num_shards: int = 0  # 0 = use all local devices

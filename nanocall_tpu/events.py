@@ -1,6 +1,6 @@
 """Event sequences as struct-of-arrays.
 
-TPU-native replacement for /root/reference/src/nanocall/Event.hpp: an event
+Accelerator-friendly replacement for /root/reference/src/nanocall/Event.hpp: an event
 sequence is a set of parallel float32 arrays (mean, stdv, start, length) plus
 derived logs; drift correction is a functional transform
 (Event.hpp:77-84).  Variable-length batches are padded with a validity mask.

@@ -10,14 +10,14 @@ processes do.
 
 Workers are jax-free: read_pipeline/fast5_io import only numpy + h5py, and
 the pool is created on first use, which in every flow precedes the first
-device dispatch, so the fork carries no live TPU-client threads.  The one
+device dispatch, so the fork carries no live device-client threads.  The one
 exception is coordinator'd multi-host runs, where
 jax.distributed.initialize spawns gRPC client threads up front — the CLI
 calls ensure_pool() BEFORE it so the fork still happens single-threaded.
 Results stream back in file order so the EM dispatcher can consume them
 as they arrive (device chunks overlap later files' ingest).
 
-This is the TPU-native stand-in for the reference's thread-pool ingest
+This is the batched pipeline's stand-in for the reference's thread-pool ingest
 overlap (pfor in train_reads, nanocall.cpp:282-290): there, per-read
 summarize cost hides inside the per-read worker threads; here, summarize
 feeds *batched* device EM, so it gets its own process pool ahead of the

@@ -1,5 +1,5 @@
 // Native host-side runtime for nanocall_tpu: the sequential per-read scalar
-// scans that sit outside the TPU compute path.
+// scans that sit outside the device compute path.
 //
 // Covers the reference's host-side hot loops (Fast5_Summary.hpp):
 //   - abasic level quantile               (detect_abasic_level, :528-543)

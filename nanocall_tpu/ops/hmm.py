@@ -1,15 +1,15 @@
 """Batched HMM dynamic programs (Viterbi, forward-backward) as JAX scans.
 
-TPU-native rebuild of the reference's DP inner loops:
+Accelerator rebuild of the reference's DP inner loops:
   - Viterbi.hpp:44-150        (max-plus forward + traceback)
   - Forward_Backward.hpp:46-135 (log-space alpha/beta)
   - Forward_Backward_Custom.hpp:46-142 (per-step-normalized variant)
 
 Design: the per-event "gather over 21 from-neighbours" of the reference
 becomes a *reshape + repeat* on the state axis (see transitions.py for the
-slot algebra), so the hot scan body is pure VPU element-wise work on
+slot algebra), so the hot scan body is pure element-wise work on
 (B, 21, n_states) tiles with reductions over the 21-slot axis — no gathers,
-no dynamic shapes, lane dimension n_states = 4096 = 32*128.  Emissions are
+no dynamic shapes, n_states = 4096 on the minor axis.  Emissions are
 computed inside the scan step from per-event scalars (never materializing a
 T x n_states emission table in HBM for decoding).
 
@@ -312,8 +312,9 @@ def _grouped_step_core(gt: GroupedTrans, alpha: jax.Array):
 
     def colmax(a):
         """Max + first-occurrence argmax over axis 1 of (B, R, m) via an
-        explicit elementwise tree (middle-axis reduce/argmax ops lower
-        poorly on TPU)."""
+        explicit elementwise tree (middle-axis reduce/argmax ops lowered
+        poorly on the previous accelerator; not re-measured on the
+        H100)."""
         R = a.shape[1]
         m = a[:, 0]
         g = jnp.zeros_like(m, dtype=jnp.int32)
@@ -351,7 +352,7 @@ def viterbi_forward_grouped(gt: GroupedTrans, model: ModelArrays, ev: dict,
                             unroll: int = 1):
     """Grouped max-plus forward pass: per step, reduce alpha to 4-way and
     16-way column maxima once, then each destination j combines three
-    candidates (stay, step-group, skip-group) — ~3-4x less VPU work than
+    candidates (stay, step-group, skip-group) — ~3-4x less elementwise work than
     the 21-slot expansion, with identical results and tie-breaking
     (see _grouped_step_core for the bp encoding).
 
@@ -489,8 +490,8 @@ def _lookup_bp(bp_t: jax.Array, s: jax.Array) -> jax.Array:
 
     A flat one-hot over (B, n) materializes n int32 compares per row each
     traceback step; splitting the index into hi/lo halves (row block of
-    ~sqrt(n), then element) does ~2*sqrt(n) compares instead — measured 1.6x
-    faster full-decode on TPU at n=4096 (PERFORMANCE.md, decode_tb2_u8)."""
+    ~sqrt(n), then element) does ~2*sqrt(n) compares instead (chosen on
+    the previous accelerator; not re-measured on the H100)."""
     B, n = bp_t.shape
     split = 1 << ((n.bit_length() - 1 + 1) // 2)  # ~sqrt(n), both powers of 2
     lo_n = n // split
@@ -527,7 +528,7 @@ def viterbi_traceback_grouped(gt: GroupedTrans, final_alpha, bps, lengths,
     with move in {0 stay, 1 step, 2 skip}, only 6 significant bits, so
     FOUR codes are bit-packed into THREE bytes on device (little-endian
     24-bit groups: code r of group g lives at bits [6r, 6r+6) of
-    bytes[3g:3g+3]) — 0.75 B/event on the wire vs 2 B for uint16 states.
+    bytes[3g:3g+3]) — 0.75 B/event to fetch vs 2 B for uint16 states.
     The full state path reconstructs losslessly from path0 by shifting in
     the low bases per move (native.path_from_packed_codes).  Entries at
     t >= length encode stay, reproducing the full path's clamped suffix
@@ -565,7 +566,7 @@ def viterbi_traceback_grouped(gt: GroupedTrans, final_alpha, bps, lengths,
 def _pack_codes(ys: jax.Array) -> jax.Array:
     """Bit-pack (Tm, B) six-bit codes 4-per-3-bytes -> (B, 3*ceil(Tm/4))
     (elementwise; negligible vs the scans, and the result fetch is the
-    decode path's wire cost)."""
+    decode path's device-to-host cost)."""
     Tm, B = ys.shape
     G = -(-Tm // 4)
     c = ys if 4 * G == Tm else jnp.pad(ys, ((0, 4 * G - Tm), (0, 0)))
@@ -587,8 +588,8 @@ def viterbi_decode_grouped(gt: GroupedTrans, model: ModelArrays, ev: dict,
     """Fast-path Viterbi decode on the grouped decomposition (standard
     stay/step/skip structured transitions only).
 
-    fwd_unroll=2 default: measured 1.9x faster forward+bp on TPU than
-    unroll=1 (107ms vs 205ms at B=256, T=4096; PERFORMANCE.md).
+    fwd_unroll=2 / tb_unroll=8 defaults: chosen on the previous
+    accelerator; not re-measured on the H100.
 
     compact_path=True returns {path0, codes, logp} instead of the full
     uint16 state path (see viterbi_traceback_grouped; 6-bit-packed codes
@@ -619,24 +620,20 @@ def viterbi_decode_grouped_tchunk(gt: GroupedTrans, model: ModelArrays,
     ceil(T/Tc) carry-linked inner scans hold the backpointers
     chunk-by-chunk, then C reverse inner scans trace back one chunk at a
     time.  The reverse pass's layout-conversion copy (the full-scan
-    program holds the whole bp tensor TWICE — the measured ~2.5x HBM
-    peak, CLAUDE.md) is thereby bounded to ONE chunk: peak HBM is
+    program holds the whole bp tensor TWICE — the ~2.5x HBM peak,
+    CLAUDE.md) is thereby bounded to ONE chunk: peak HBM is
     ~(1 + 1.5/C)x of the bp bytes, which admits ~2.5x the batch at the
-    same budget.  Measured 3.8x long-read decode throughput at
-    T=100352/B=32 vs the full-scan B=8 budget shape (PERFORMANCE.md
-    round 5; the multi-dispatch equivalent is tools/exp_seqchunk.py, the
-    cross-device one parallel/seqpar.py).
+    same budget (the cross-device equivalent is parallel/seqpar.py).
 
     Bit-identical to viterbi_decode_grouped — same _grouped_step_core op
     sequence, same masking, same compact 6-bit code packing (pinned by
     tests/test_seqpar.py) — so the pipeline can select it per bucket
     with no downstream change.  The chunk loop is a STATIC Python loop
     (C = ceil(T/Tc) inner scans inlined into the one program; the last
-    chunk is simply shorter): an outer lax.scan was measured 30-55%
-    slower on hardware — its ys buffer costs an extra full-bp-tensor
-    write pass — while the unrolled form keeps each inner scan's ys as
-    its own buffer, matching the multi-dispatch chunking's speed in one
-    dispatch."""
+    chunk is simply shorter): an outer lax.scan's ys buffer costs an
+    extra full-bp-tensor write pass, while the unrolled form keeps each
+    inner scan's ys as its own buffer (chosen on the previous
+    accelerator; not re-measured on the H100)."""
     n = model.level_mean.shape[-1]
     lengths = ev["length"]
     B, T = ev["mean"].shape
@@ -719,8 +716,9 @@ def viterbi_traceback(ops: TransOps, final_alpha, bps, lengths,
 
     The per-step backpointer lookup is a two-stage one-hot masked reduction
     (_lookup_bp) rather than a gather: masked lane reductions beat a dynamic
-    gather's lowering on TPU; the tiny body makes the loop
-    iteration-latency-bound, so it is unrolled.
+    gather's lowering on the previous accelerator (not re-measured on the
+    H100); the tiny body makes the loop iteration-latency-bound, so it is
+    unrolled.
     """
     Tm, B, n = bps.shape  # T-1 rows: bps[t-1] = event t's backpointers
     K = ops.K
@@ -997,17 +995,14 @@ def fwbw_grouped(gtf: GroupedTransFull, model: ModelArrays, ev: dict,
     def tile(x, r):  # (B, n/r) -> (B, n): value at i = x[i mod (n/r)]
         return jnp.broadcast_to(x[:, None, :], (B, r, x.shape[1])).reshape(B, n)
 
-    # unroll measured a wash here (31.5/33.2/31.3 ms at u=1/2/4, B=256
-    # T=128: the exp/log-heavy body is compute-bound, unlike the Viterbi
-    # forward), and on TPU the unrolled program's fusion reassociates the
-    # lse accumulation (log_pr_data differs in low bits vs unroll=1 —
-    # measured) — default 1 keeps results bit-stable AND the program small.
-    # (Viterbi's max-plus scan has no such drift: path equality across
-    # unroll variants is hardware-verified in tools/exp_decode.py.)
-    # NOTE: the FUSED EM round's call of fwbw_grouped_forward is a
-    # different story — there the scan also materializes the alpha ys,
-    # and unroll=2 measured 1.25x (train.EM_FWD_UNROLL's comment); the
-    # TPU low-bit lpd caveat applies to it identically.
+    # unroll was a wash here on the previous accelerator (the exp/log-heavy
+    # body is compute-bound, unlike the Viterbi forward), and an unrolled
+    # program's fusion may reassociate the lse accumulation (log_pr_data
+    # differs in low bits vs unroll=1) — default 1 keeps results
+    # bit-stable AND the program small.  (Viterbi's max-plus scan has no
+    # such drift: it only compares and adds.)  The FUSED EM round's call
+    # of fwbw_grouped_forward unrolls by 2 (train.EM_FWD_UNROLL); the
+    # low-bit lpd caveat applies to it identically.
     alphas, ems, log_pr_data = fwbw_grouped_forward(gtf, model, ev,
                                                     unroll=unroll)
 

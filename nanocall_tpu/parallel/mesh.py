@@ -23,8 +23,9 @@ class DataSharder:
 
     Used by the pipeline when more than one device is visible (the
     single-host multi-chip case; batch elements are independent reads, so
-    this is pure data parallelism with no collectives — the TPU analogue of
-    the reference's thread pool over reads).
+    this is pure data parallelism with no collectives — the device analogue of
+    the reference's thread pool over reads).  Decode chunks split over the
+    mesh (`shard`); EM buckets go whole to one device each (`device`).
     """
 
     def __init__(self, n_devices: int | None = None):
@@ -36,6 +37,7 @@ class DataSharder:
         devs = jax.local_devices()
         n = n_devices if n_devices else len(devs)
         self.n = max(1, min(n, len(devs)))
+        self.devices = devs[: self.n]
         if self.n > 1:
             self.mesh = Mesh(np.array(devs[: self.n]), ("data",))
             self.spec = NamedSharding(self.mesh, P("data"))
@@ -59,6 +61,11 @@ class DataSharder:
             return jax.device_put(x, self.repl)
 
         return jax.tree_util.tree_map(put, tree)
+
+    def device(self, i: int):
+        """Device of the i-th whole-batch dispatch, round-robin over the
+        mesh; None when there is one device (leave placement to JAX)."""
+        return self.devices[i % self.n] if self.active else None
 
 
 def make_mesh(n_devices: int | None = None, model_axis: int = 1) -> Mesh:

@@ -1,4 +1,4 @@
-"""Multi-host (pod-slice) execution: file sharding + output merging.
+"""Multi-host execution: file sharding + output merging.
 
 Pod-scale streaming (SURVEY.md §7, BASELINE.json config 5): each host
 process runs the full pipeline over its shard of the input fast5 files

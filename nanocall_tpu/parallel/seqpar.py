@@ -3,7 +3,7 @@
 The reference caps reads at 100k events and materializes the full DP
 matrix on one node (Fast5_Summary.hpp:510-524, nanocall.cpp:65; the
 backpointer tensor is the decode path's HBM ceiling — see CLAUDE.md's
-round-4 OOM anatomy).  Here the EVENT (time) axis of one batch of reads
+decode-program HBM anatomy).  Here the EVENT (time) axis of one batch of reads
 is partitioned contiguously over a mesh axis: each device scans only its
 T/D-event slice and materializes only its (T/D, B, n) backpointer slice,
 so the per-device HBM requirement drops by the mesh factor — reads D

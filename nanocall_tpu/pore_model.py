@@ -1,6 +1,6 @@
 """Pore models: per-state emission distributions, scaling, and I/O.
 
-TPU-native replacement for /root/reference/src/nanocall/Pore_Model.hpp: the
+Accelerator-friendly replacement for /root/reference/src/nanocall/Pore_Model.hpp: the
 model is a struct-of-arrays (level_mean/level_stdv/sd_mean/sd_stdv over all
 n_states k-mers) instead of an array-of-structs; scaling is a functional
 transform; emissions are computed as fused jnp expressions inside the DP

@@ -1,8 +1,8 @@
-"""HMM state-transition tables, TPU-native layout.
+"""HMM state-transition tables in an accelerator-friendly layout.
 
 The reference (/root/reference/src/nanocall/State_Transitions.hpp) stores a
 per-state adjacency list (`to_v`/`from_v` vectors of (state, logp) pairs).
-On TPU we exploit that the *fast* transition structure (stay + 4 step +
+On the device we exploit that the *fast* transition structure (stay + 4 step +
 16 skip-1 successors, State_Transitions.hpp:181-220) is fully regular:
 
   from-neighbours of state j (slot layout, S = 21 slots):

@@ -68,8 +68,7 @@ def test_align_never_exceeds_memory_cap():
 def test_long_read_bucket_math():
     """Bucket math at the reference's 100k-event cap (nanocall.cpp:65):
     T quantizes to the next 2048 multiple and the HBM budget caps the
-    batch at 8 rows (3.3 GiB of backpointers fits the 4 GiB budget;
-    measured on hardware — tools/exp_longread.py, PERFORMANCE.md)."""
+    batch at 8 rows (3.3 GiB of backpointers fits the 4 GiB budget)."""
     from nanocall_tpu.basecall import BP_MEM_BUDGET
 
     T = batching.bucket_length(100_000)

@@ -415,10 +415,10 @@ def test_ensure_pool_forks_workers_eagerly():
 
 
 def test_event_pool_block_upload_and_growth():
-    """EventPool semantics (round-3 incremental design): growth past the
+    """EventPool semantics (incremental design): growth past the
     initial capacity keeps all rows intact; every UPLOAD_BLOCK rows a
     device block dispatches during add(); finalize assembles (Pq, T)
-    arrays with DEVICE-generated padding (no padding bytes on the wire);
+    arrays with DEVICE-generated padding (no padding bytes uploaded);
     and a late add() after finalize ships only the new rows — previously
     uploaded device blocks are reused, not re-shipped."""
     from nanocall_tpu import events as events_mod
@@ -457,7 +457,7 @@ def test_event_pool_block_upload_and_growth():
     for i, ev in enumerate(evs):
         assert np.array_equal(host0[i, : len(ev)], ev.mean)
     # padding rows (20 -> Pq=32) keep the deterministic fill without ever
-    # crossing the wire (device-generated)
+    # being uploaded (device-generated)
     assert host0.shape[0] == 32
     assert np.all(host0[20:] == 1.0)
     assert np.all(np.asarray(dev0["start"])[20:] == 0.0)
@@ -793,8 +793,8 @@ def test_pipeline_long_read_above_8k(models, tmp_path):
     """Whole-pipeline smoke ABOVE the 8k-event fixtures (all other
     fixtures are <= 8k): a ~17k-event 1D read must bucket to T=18432 and
     decode to a correct-length sequence through the real chunk path.  The
-    full 100k-event cap is exercised on hardware (tools/exp_longread.py;
-    PERFORMANCE.md) — this keeps the >8k bucket arithmetic honest in the
+    chunked-time decoder of reads above 32768 events runs on the card in
+    chip_smoke.py — this keeps the >8k bucket arithmetic honest in the
     CPU suite."""
     d = tmp_path / "long"
     d.mkdir()

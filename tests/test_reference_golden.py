@@ -2,7 +2,7 @@
 
 These run the actual C++ reference code (built by tests/ref_tools.py from
 /root/reference/src/nanocall with shimmed submodule headers) and assert
-that our TPU framework's tools produce identical results on shared TSV
+that this framework's tools produce identical results on shared TSV
 fixtures — the HACKING.org:9-24 conformance contract:
 
   - compute-state-transitions: identical (i, j) edge sets, probs to print

@@ -1,11 +1,10 @@
 """The compiled-shape budget: every (T, B, P) the dispatch drivers can
 emit must come from nanocall_tpu/shapes.py's enumeration.
 
-This backend compiles on first execution at minutes per program shape
-(CLAUDE.md), so tools/warm_cache.py pre-executes the enumeration and
-these tests are the tripwire for changes that silently mint new shapes
-(a round-4 e2e run measured a 225 s mid-pipeline stall from one
-un-warmed pool arity)."""
+Every new program shape costs a compile, so tools/warm_cache.py
+pre-executes the enumeration and these tests are the tripwire for changes
+that silently mint new shapes (one un-warmed pool arity stalls a run
+mid-pipeline for its compile)."""
 
 import numpy as np
 import pytest

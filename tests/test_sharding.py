@@ -87,6 +87,49 @@ def test_sharded_train_round_matches_single():
         ), k
 
 
+def test_data_sharder_places_whole_batches_round_robin():
+    devs = jax.local_devices()
+    sharder = DataSharder(4)
+    assert [sharder.device(i) for i in range(6)] == devs[:4] + devs[:2]
+    assert DataSharder(1).device(3) is None  # one device: JAX places it
+
+
+@pytest.mark.parametrize("device_loop", [True, False])
+def test_em_bucket_on_another_device_matches_default(device_loop):
+    """run_em(device=d) runs the whole bucket on d, bit-identical to the
+    default placement: the pipeline's multi-device EM puts each bucket on
+    one device, never splitting it."""
+    from nanocall_tpu import train
+
+    rng = np.random.default_rng(5)
+    G, S, T = 4, 2, 16
+    stdv = rng.uniform(0.5, 1.5, (G, S, T)).astype(np.float32)
+    ev = {
+        "mean": rng.uniform(40, 90, (G, S, T)).astype(np.float32),
+        "stdv": stdv,
+        "log_stdv": np.log(stdv),
+        "start": np.cumsum(np.full((G, S, T), 0.02, np.float32), axis=-1),
+        "length": np.full((G, S), T, np.int32),
+        "strand": np.zeros((G, S), np.int32),
+        "valid": np.ones((G, S), bool),
+    }
+    mdl = {k: np.tile(rng.uniform(lo, hi, N).astype(np.float32), (G, 2, 1))
+           for k, lo, hi in (("level_mean", 40, 90), ("level_stdv", 0.8, 2),
+                             ("sd_mean", 0.5, 1.5), ("sd_lambda", 2, 9))}
+    pm0 = np.tile(np.array([1, 0, 0, 1, 1, 1], np.float32), (G, 1))
+    st0 = np.tile(np.array([0.1, 0.3], np.float32), (G, 2, 1))
+    cfg = train.EMConfig(K=K, max_rounds=3)
+    dev = jax.local_devices()[5]
+    ref = train.run_em(ev, mdl, pm0, st0, cfg, device_loop=device_loop)
+    out = train.run_em(ev, mdl, pm0, st0, cfg, device=dev,
+                       device_loop=device_loop, fetch=not device_loop)
+    if device_loop:
+        assert out[0].devices() == {dev}
+        out = train.fetch_em_result(out)
+    for a, b in zip(ref, out):
+        assert np.array_equal(a, b)
+
+
 def test_2d_mesh_decode():
     """Decode with states sharded over a second 'model' axis still matches."""
     rng = np.random.default_rng(2)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Regenerate nanocall_tpu/models/builtin.npz from pore-model TSV files.
 
-TPU-native equivalent of the reference's make-builtin-model-initializers
+Equivalent of the reference's make-builtin-model-initializers
 (src/builtin_models/): instead of embedding 49k lines of C++ initializer
 lists, the model tables (ONT-provided data) are packed into one npz keyed
 by model name, with a parallel strands array.
